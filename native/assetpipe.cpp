@@ -1,6 +1,6 @@
 // Native asset pipeline kernels.
 //
-// TPU-native counterpart of the reference's C++ asset path: stb-style
+// Host-side counterpart of the reference's C++ asset path: stb-style
 // image post-processing, GPU-blit mip generation (texture.cpp:190-246)
 // and staging-buffer packing (model.cpp:409-465) become host SIMD loops
 // feeding one device_put.  Exposed via a plain C ABI for ctypes

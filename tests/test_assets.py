@@ -3,10 +3,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from soc_real_time_renderer_tpu.models import gltf, proc, terrain, texture
-from soc_real_time_renderer_tpu.models.scene_batch import (
+from soc_real_time_renderer.models import gltf, proc, terrain, texture
+from soc_real_time_renderer.models.scene_batch import (
     build_scene_batch, split_large_triangles)
-from soc_real_time_renderer_tpu.utils import exr
+from soc_real_time_renderer.utils import exr
 
 HELMET = "/root/reference/assets/DamagedHelmet/glTF/DamagedHelmet.gltf"
 HELMET_GLB = "/root/reference/assets/DamagedHelmet/glTF-Binary/DamagedHelmet.glb"
@@ -127,7 +127,7 @@ def test_expand_atlas_bilinear_paths_agree():
     import sys
     import unittest.mock as mock
 
-    from soc_real_time_renderer_tpu.models import texture as tx
+    from soc_real_time_renderer.models import texture as tx
 
     rng = np.random.default_rng(3)
     size = 16

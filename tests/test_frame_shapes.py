@@ -6,11 +6,11 @@ import jax
 import numpy as np
 import pytest
 
-from soc_real_time_renderer_tpu import config as cfgm
-from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
-from soc_real_time_renderer_tpu.graph import frame as fm
-from soc_real_time_renderer_tpu.models import proc
-from soc_real_time_renderer_tpu.models.scene_batch import build_scene_batch
+from soc_real_time_renderer import config as cfgm
+from soc_real_time_renderer.camera import Camera3D, camera_matrices
+from soc_real_time_renderer.graph import frame as fm
+from soc_real_time_renderer.models import proc
+from soc_real_time_renderer.models.scene_batch import build_scene_batch
 
 
 def _setup(width=256, height=128, **cfg_kw):
@@ -59,7 +59,7 @@ def test_render_frame_shapes(cfg_kw):
     assert out.hiz_min[0].shape == (H // 2, W // 2)
     assert out.hiz_max[-1].shape == (1, 1)
     assert out.overflow.shape == ()
-    assert out.tex_dirty.shape == ()
+    assert out.ssr_active.shape == ()
 
 
 @pytest.mark.parametrize("stub", ["resolve", "raster", "shadow_resolve",

@@ -16,7 +16,7 @@ import json
 
 import numpy as np
 
-from soc_real_time_renderer_tpu.models import gltf
+from soc_real_time_renderer.models import gltf
 
 
 def _write(tmp_path, doc, name="t.gltf"):

@@ -11,11 +11,11 @@ import dataclasses
 import numpy as np
 import pytest
 
-from soc_real_time_renderer_tpu import config as cfgm
-from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
-from soc_real_time_renderer_tpu.graph import frame as fm
-from soc_real_time_renderer_tpu.models import proc
-from soc_real_time_renderer_tpu.models.scene_batch import build_scene_batch
+from soc_real_time_renderer import config as cfgm
+from soc_real_time_renderer.camera import Camera3D, camera_matrices
+from soc_real_time_renderer.graph import frame as fm
+from soc_real_time_renderer.models import proc
+from soc_real_time_renderer.models.scene_batch import build_scene_batch
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +34,7 @@ def tiny_frame():
                                         med_cap=64))
     cam = Camera3D()
     cam.resize(cfg.width, cfg.height)
-    import soc_real_time_renderer_tpu.utils.mathutil as mu
+    import soc_real_time_renderer.utils.mathutil as mu
     cam.view_mat = mu.look_at([0, 0, 1.0], [0, 0, -1], [0, 1, 0])
     cm = camera_matrices(cam, [0, 0, 1.0], 1, cfg.width, cfg.height)
     g = cfgm.ShaderGlobals.create(camera=cm, camera_prev=cm,
@@ -105,7 +105,7 @@ def full_frame():
                                         med_cap=64))
     cam = Camera3D()
     cam.resize(cfg.width, cfg.height)
-    import soc_real_time_renderer_tpu.utils.mathutil as mu
+    import soc_real_time_renderer.utils.mathutil as mu
     cam.view_mat = mu.look_at([0, 0, 1.0], [0, 0, -1], [0, 1, 0])
     cm = camera_matrices(cam, [0, 0, 1.0], 1, cfg.width, cfg.height)
     g = cfgm.ShaderGlobals.create(camera=cm, camera_prev=cm,

@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from soc_real_time_renderer_tpu import config as cfg
-from soc_real_time_renderer_tpu.camera import (Camera3D, ControlledCamera3D,
+from soc_real_time_renderer import config as cfg
+from soc_real_time_renderer.camera import (Camera3D, ControlledCamera3D,
                                                InputState, camera_matrices)
-from soc_real_time_renderer_tpu.utils import mathutil as mu
+from soc_real_time_renderer.utils import mathutil as mu
 
 
 def test_perspective_depth_range():

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from soc_real_time_renderer_tpu import config as cfg
-from soc_real_time_renderer_tpu.ops import (bloom, exposure, hiz, sampling,
+from soc_real_time_renderer import config as cfg
+from soc_real_time_renderer.ops import (bloom, exposure, hiz, sampling,
                                             taa, tonemap)
 
 
@@ -169,7 +169,7 @@ def test_plastic_jitter_cycles():
 def test_sun_visibility_range():
     """Cloud sun-march transmittance stays in (0, 1] and finite."""
     import numpy as np
-    from soc_real_time_renderer_tpu.ops import clouds as cl
+    from soc_real_time_renderer.ops import clouds as cl
 
     rng = np.random.default_rng(3)
     p = jnp.asarray(rng.uniform(-2000, 2000, (9, 13, 3)).astype(np.float32))
@@ -181,7 +181,7 @@ def test_sun_visibility_range():
 
 
 def test_sky_lut_finite():
-    from soc_real_time_renderer_tpu.ops import clouds as cl
+    from soc_real_time_renderer.ops import clouds as cl
     import numpy as np
 
     g = cfg.ShaderGlobals.create()
@@ -195,8 +195,8 @@ def test_sky_lut_matches_exact_path():
     march (cloud_rendering.inl port) within tolerance: the cloud field
     is camera-relative in xz (:237) so the sky is a pure function of
     ray direction — the LUT only loses angular resolution + dither."""
-    from soc_real_time_renderer_tpu.ops import clouds as cl
-    from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
+    from soc_real_time_renderer.ops import clouds as cl
+    from soc_real_time_renderer.camera import Camera3D, camera_matrices
 
     w, h = 32, 16
     cam = Camera3D()
@@ -225,8 +225,8 @@ def test_cloud_quadrant_quirk_subimage_property():
     evaluate rays at uv = i/(W-1).  Holds for the exact march and the
     LUT lookup (dither uses local pixel coords, identical on the
     crop)."""
-    from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
-    from soc_real_time_renderer_tpu.ops import clouds as cl
+    from soc_real_time_renderer.camera import Camera3D, camera_matrices
+    from soc_real_time_renderer.ops import clouds as cl
 
     w, h = 16, 8
     W, H = 2 * w, 2 * h
@@ -258,9 +258,9 @@ def test_sky_lut_error_sweep_sun_angles():
     (VERDICT r2 item 6).  Measured magnitudes are recorded in
     PARITY.md row T12; this test pins them so the deviation cannot
     silently grow."""
-    from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
-    from soc_real_time_renderer_tpu.ops import clouds as cl
-    from soc_real_time_renderer_tpu.utils import mathutil as mu
+    from soc_real_time_renderer.camera import Camera3D, camera_matrices
+    from soc_real_time_renderer.ops import clouds as cl
+    from soc_real_time_renderer.utils import mathutil as mu
     import numpy as np
 
     w, h = 32, 16
@@ -295,8 +295,8 @@ def test_sky_lut_dither_restores_banding_noise():
     texel neighbourhood of the undithered lookup and (b) actually vary
     within 4x4 pixel blocks (the banding-masking noise the reference
     gets from its dithered march start, cloud_rendering.inl:92-113)."""
-    from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
-    from soc_real_time_renderer_tpu.ops import clouds as cl
+    from soc_real_time_renderer.camera import Camera3D, camera_matrices
+    from soc_real_time_renderer.ops import clouds as cl
     import numpy as np
 
     w, h = 64, 32
@@ -321,9 +321,9 @@ def test_sky_lut_azimuth_wraps_at_pi():
     column is hot and the rest cold: a camera facing -X (azimuth at the
     seam) must see energy bleeding across it; the old clamp-to-edge
     lookup pinned those pixels to the cold last column exactly."""
-    from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
-    from soc_real_time_renderer_tpu.ops import clouds as cl
-    from soc_real_time_renderer_tpu.utils import mathutil as mu
+    from soc_real_time_renderer.camera import Camera3D, camera_matrices
+    from soc_real_time_renderer.ops import clouds as cl
+    from soc_real_time_renderer.utils import mathutil as mu
     import numpy as np
 
     w, h = 64, 32
@@ -383,7 +383,7 @@ def test_sample_screen_separable_bitexact():
     on outer-product grids (it replaces the flat gather in the clouds
     sky-mask resample)."""
     import numpy as np
-    from soc_real_time_renderer_tpu.ops import sampling
+    from soc_real_time_renderer.ops import sampling
     rng = np.random.default_rng(0)
     img = jnp.asarray(rng.random((3, 37, 53), dtype=np.float32))
     u = jnp.asarray(rng.random(29, dtype=np.float32) * 1.3 - 0.1)
@@ -399,7 +399,7 @@ def test_ssr_compact_matches_dense():
     """The compacted SSR march (metallic-pixel early-out, ops/ssr.py)
     must be pixel-identical to the dense march when the cap holds, and
     must flag + black-out (never garbage) the over-cap rays."""
-    from soc_real_time_renderer_tpu.ops import ssr as ssr_ops
+    from soc_real_time_renderer.ops import ssr as ssr_ops
     rng = np.random.default_rng(3)
     H, W = 32, 64
     depth = jnp.asarray(
@@ -410,7 +410,7 @@ def test_ssr_compact_matches_dense():
     metal = (rng.random((H, W)) < 0.3).astype(np.float32)
     mr = jnp.stack([jnp.full((H, W), 0.5), jnp.asarray(metal)])
 
-    from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
+    from soc_real_time_renderer.camera import Camera3D, camera_matrices
     cam = Camera3D()
     cam.resize(W, H)
     cm = camera_matrices(cam, [0, 0, 1.0], 1, W, H)

@@ -9,13 +9,13 @@ resize — persistent TaskImages just swap backing images)."""
 import numpy as np
 import pytest
 
-from soc_real_time_renderer_tpu import scenes
-from soc_real_time_renderer_tpu.config import RenderConfig
-from soc_real_time_renderer_tpu.graph import frame as fm
-from soc_real_time_renderer_tpu.models import proc
-from soc_real_time_renderer_tpu.scene.components import (MeshComponent,
+from soc_real_time_renderer import scenes
+from soc_real_time_renderer.config import RenderConfig
+from soc_real_time_renderer.graph import frame as fm
+from soc_real_time_renderer.models import proc
+from soc_real_time_renderer.scene.components import (MeshComponent,
                                                          TransformComponent)
-from soc_real_time_renderer_tpu.scene.scene import Scene
+from soc_real_time_renderer.scene.scene import Scene
 
 
 def _tiny_built(w, h):

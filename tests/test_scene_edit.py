@@ -14,12 +14,12 @@ import dataclasses
 
 import numpy as np
 
-from soc_real_time_renderer_tpu import scenes
-from soc_real_time_renderer_tpu.config import RenderConfig
-from soc_real_time_renderer_tpu.graph import frame as frame_mod
-from soc_real_time_renderer_tpu.scene.components import (MeshComponent,
+from soc_real_time_renderer import scenes
+from soc_real_time_renderer.config import RenderConfig
+from soc_real_time_renderer.graph import frame as frame_mod
+from soc_real_time_renderer.scene.components import (MeshComponent,
                                                          TransformComponent)
-from soc_real_time_renderer_tpu.ui.scene_panel import SceneHiearchyPanel
+from soc_real_time_renderer.ui.scene_panel import SceneHiearchyPanel
 
 CFG = RenderConfig(width=128, height=128, shadow_resolution=128,
                    enable_ssao=False, enable_bloom=False,
@@ -86,7 +86,7 @@ def test_add_mesh_entity_rebuild_renders():
 def test_components_schema_roundtrip_json():
     import json
 
-    from soc_real_time_renderer_tpu.ui.server import _jsonable
+    from soc_real_time_renderer.ui.server import _jsonable
     built = _small_caps(scenes.build("helmet", CFG))
     panel = SceneHiearchyPanel(built.scene)
     eid = built.scene.mesh_entities()[0].eid
@@ -233,8 +233,8 @@ def test_live_terrain_rebake_changes_model():
     model host-side (models/terrain.py docstring promise): the model
     identity changes (routing rebuild onto the full re-pack) and the
     baked displacement actually doubles."""
-    from soc_real_time_renderer_tpu.scene.components import MeshComponent
-    from soc_real_time_renderer_tpu.ui.server import _rebake_terrain
+    from soc_real_time_renderer.scene.components import MeshComponent
+    from soc_real_time_renderer.ui.server import _rebake_terrain
     cfg = RenderConfig(width=64, height=64, shadow_resolution=64,
                        enable_clouds=False)
     built = scenes.build("terrain", cfg)

@@ -13,11 +13,11 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from soc_real_time_renderer_tpu import config as cfgm
-from soc_real_time_renderer_tpu import scenes
-from soc_real_time_renderer_tpu.config import RenderConfig
-from soc_real_time_renderer_tpu.graph import frame as fm
-from soc_real_time_renderer_tpu.ops import composition as comp
+from soc_real_time_renderer import config as cfgm
+from soc_real_time_renderer import scenes
+from soc_real_time_renderer.config import RenderConfig
+from soc_real_time_renderer.graph import frame as fm
+from soc_real_time_renderer.ops import composition as comp
 
 
 def test_helmet_scene_proves_empty_and_matches_raster_path():
@@ -48,8 +48,8 @@ def test_helmet_scene_proves_empty_and_matches_raster_path():
 
 
 def test_in_volume_geometry_defeats_the_proof():
-    from soc_real_time_renderer_tpu.models import proc
-    from soc_real_time_renderer_tpu.models.scene_batch import \
+    from soc_real_time_renderer.models import proc
+    from soc_real_time_renderer.models.scene_batch import \
         build_scene_batch
     batch, _ = build_scene_batch([proc.unit_quad(z=-1.0, size=0.5)],
                                  atlas_size=64)
@@ -91,7 +91,7 @@ def test_batched_render_fn_also_guards_the_sun_proof():
     camera."""
     import jax
     import pytest
-    from soc_real_time_renderer_tpu.parallel import mesh as pmesh
+    from soc_real_time_renderer.parallel import mesh as pmesh
     cfg = RenderConfig(width=128, height=128, shadow_resolution=128)
     built = scenes.build("helmet", cfg)
     assert built.plan.shadow_statically_empty
@@ -114,7 +114,7 @@ def test_empty_map_composition_matches_all_ones_map():
     map, including the volumetric branch."""
     rng = np.random.default_rng(3)
     H, W, S = 16, 32, 64
-    from soc_real_time_renderer_tpu.camera import Camera3D, camera_matrices
+    from soc_real_time_renderer.camera import Camera3D, camera_matrices
     cam = Camera3D()
     cam.resize(W, H)
     g = cfgm.ShaderGlobals.create(

@@ -24,9 +24,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from soc_real_time_renderer_tpu import scenes
-from soc_real_time_renderer_tpu.config import RenderConfig
-from soc_real_time_renderer_tpu.ui import server as server_mod
+from soc_real_time_renderer import scenes
+from soc_real_time_renderer.config import RenderConfig
+from soc_real_time_renderer.ui import server as server_mod
 
 CFG = RenderConfig(width=16, height=16, shadow_resolution=16,
                    enable_ssao=False, enable_bloom=False,
@@ -142,7 +142,7 @@ def test_viewer_resize(viewer, monkeypatch):
 
     from PIL import Image
 
-    from soc_real_time_renderer_tpu.graph import frame as frame_mod
+    from soc_real_time_renderer.graph import frame as frame_mod
 
     base, state, panel = viewer
 

@@ -1,9 +1,7 @@
 #!/usr/bin/env python
 """Offline analysis of optimized-HLO dumps (tools/dump_hlo.py output):
-per-fusion op/byte census and a two-dump diff — the evidence pass for
-VERDICT r4 items 1 (in-frame texture inflation: which fusions
-duplicate the record gather / planner chains) and 4 (what the HiZ
-reduction changes in the config-5 schedule).
+per-fusion op/byte census and a two-dump diff (which fusions duplicate
+the record gather, what a toggle changes in the schedule).
 
 Pure text processing; no JAX.
 

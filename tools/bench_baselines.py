@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Run all five BASELINE.json configs through the scan harness and
-print one table (the single source of truth for BASELINE.md).
+"""Run the BASELINE.json configs through the scan harness and print one
+table.
 
 Usage: python tools/bench_baselines.py [--frames 32]
 """
@@ -19,35 +19,16 @@ def main():
                     help="run a subset, comma-separated (e.g. 3,5,7)")
     ap.add_argument("--filter", default="",
                     help="override FramePlan.texture_filter "
-                         "(bilinear/trilinear A/B, VERDICT r2 item 4)")
-    ap.add_argument("--tex-geom", default="",
-                    help="k_top,nblk,tps tile-sampler geometry A/B "
-                         "(e.g. 8,8,8) — FramePlan.tex_k_top/nblk/tps")
-    ap.add_argument("--tex-px-fallback", action="store_true",
-                    help="per-PIXEL dirty fallback compaction A/B "
-                         "(FramePlan.tex_px_fallback, VERDICT r4 item "
-                         "1b) — fallback cost tracks actual uncovered "
-                         "pixels instead of the cap*256 tile tax")
-    ap.add_argument("--tex-impl", default="",
-                    help="override FramePlan.texture_impl (xla/pallas) "
-                         "— e.g. tile-sampler A/B on the helmet "
-                         "configs whose auto choice picked xla "
-                         "(VERDICT r4 item 7); forces the atlas page "
-                         "build when pallas is requested")
+                         "(bilinear/trilinear A/B)")
     ap.add_argument("--rec-pack", default="",
                     help="override FramePlan.rec_pack (hilo/u32/f32) — "
-                         "shading-record stream layout A/B (VERDICT "
-                         "r4 item 2: record gather 15.6 ms at config "
-                         "5; u32 halves gathered elements)")
+                         "shading-record stream layout A/B")
     ap.add_argument("--cloud-impl", default="",
                     help="override RenderConfig.cloud_impl (lut/"
-                         "perpixel A/B — prices the LUT deviation, "
-                         "VERDICT r4 item 6)")
+                         "perpixel A/B — prices the LUT deviation)")
     ap.add_argument("--compiler-opt", action="append", default=[],
-                    help="key=value XLA compiler option (repeatable) — "
-                         "compile-latency experiments (VERDICT r3 item "
-                         "8), e.g. xla_tpu_enable_latency_hiding_"
-                         "scheduler=false")
+                    help="key=value XLA compiler option (repeatable), "
+                         "for compile-latency experiments")
     args = ap.parse_args()
 
     import dataclasses
@@ -55,12 +36,12 @@ def main():
     import jax
     import numpy as np
 
-    from soc_real_time_renderer_tpu import scenes
-    from soc_real_time_renderer_tpu.utils import compile_cache
+    from soc_real_time_renderer import scenes
+    from soc_real_time_renderer.utils import compile_cache
 
     compile_cache.enable()
-    from soc_real_time_renderer_tpu.config import RenderConfig
-    from soc_real_time_renderer_tpu.graph import frame as frame_mod
+    from soc_real_time_renderer.config import RenderConfig
+    from soc_real_time_renderer.graph import frame as frame_mod
 
     # BASELINE.json configs 1-5
     CONFIGS = [
@@ -80,8 +61,8 @@ def main():
          "terrain", dict(width=1920, height=1088)),
         (5, "full scene (sponza+terrain+clouds+TAA+exposure), 1920x1080",
          "full", dict(width=1920, height=1088)),
-        # appendix rows (VERDICT r2 item 7): no silent fast-because-dead
-        # wins — pay the 4096² shadow raster and the 50-iter SSR march
+        # appendix rows: no silent fast-because-dead wins — pay the
+        # 4096² shadow raster and the 50-iter SSR march
         (6, "APPENDIX config-2 variant, helmet INSIDE sun volume "
             "(shadow raster actually pays)",
          "helmet_lifted", dict(width=1280, height=736,
@@ -99,21 +80,10 @@ def main():
         if only and num not in only:
             continue
         cfg = RenderConfig(**kw)
-        build_kw = {}
-        if args.tex_impl == "pallas":
-            build_kw["build_page"] = True
-        built = scenes.build(scene, cfg, **build_kw)
+        built = scenes.build(scene, cfg)
         plan = built.plan
-        if args.tex_impl:
-            plan = dataclasses.replace(plan, texture_impl=args.tex_impl)
         if args.filter:
             plan = dataclasses.replace(plan, texture_filter=args.filter)
-        if args.tex_geom:
-            kt, nb, tp = (int(s) for s in args.tex_geom.split(","))
-            plan = dataclasses.replace(plan, tex_k_top=kt, tex_nblk=nb,
-                                       tex_tps=tp)
-        if args.tex_px_fallback:
-            plan = dataclasses.replace(plan, tex_px_fallback=True)
         if args.rec_pack:
             plan = dataclasses.replace(plan, rec_pack=args.rec_pack)
         if args.cloud_impl:
@@ -134,11 +104,7 @@ def main():
                 # frame.bench_probe consumes every enabled pass output
                 # (HiZ tops, un-composited SSR) so no pass is silently
                 # dead-code-eliminated out of the measured frame
-                # (VERDICT r3: config 7's SSR march was DCE'd).
-                # tex_dirty rides along per frame (VERDICT r3 item 6:
-                # record actual dirty-tile rates per config).
-                return h2, (frame_mod.bench_probe(out), out.tex_dirty,
-                            out.ssr_active)
+                return h2, (frame_mod.bench_probe(out), out.ssr_active)
             return jax.lax.scan(step, hist, gb)
 
         copts = dict(kv.split("=", 1) for kv in args.compiler_opt) or None
@@ -146,30 +112,23 @@ def main():
                        compiler_options=copts)
         hist = frame_mod.RenderHistory.create(cfg)
         t0 = time.perf_counter()
-        _, (probes, dirts, ssra) = runj(built.batch, gb, hist, mm, nm)
+        _, (probes, ssra) = runj(built.batch, gb, hist, mm, nm)
         float(probes.sum())
         compile_s = time.perf_counter() - t0
         hist = frame_mod.RenderHistory.create(cfg)
         t0 = time.perf_counter()
-        _, (probes, dirts, ssra) = runj(built.batch, gb, hist, mm, nm)
+        _, (probes, ssra) = runj(built.batch, gb, hist, mm, nm)
         float(probes.sum())
         ms = (time.perf_counter() - t0) * 1e3 / args.frames
         tris = built.batch.num_triangles
         mpix = cfg.width * cfg.height / 1e6
-        dirts = np.asarray(dirts)
-        cap_s = ("px cap auto" if plan.tex_px_fallback
-                 else f"cap {plan.tex_dirty_cap}")
-        dirty_s = ("n/a (xla tex path)" if dirts.max() < 0 else
-                   f"{dirts.min()}..{dirts.max()} ({cap_s})")
         ssra = np.asarray(ssra)
-        if ssra.max() >= 0:
-            dirty_s += (f", ssr active {ssra.min()}..{ssra.max()} "
-                        f"(cap {plan.ssr_cap})")
+        ssr_s = (f", ssr active {ssra.min()}..{ssra.max()} "
+                 f"(cap {plan.ssr_cap})" if ssra.max() >= 0 else "")
         print(f"config {num}: {ms:8.2f} ms/frame  "
               f"({tris/1e3:.0f}k tris, {tris * 1e3 / ms / 1e6:.0f} Mtris/s, "
-              f"{mpix * 1e3 / ms:.0f} Mpix/s, compile {compile_s:.0f}s, "
-              f"dirty tiles {dirty_s})  "
-              f"— {desc}", flush=True)
+              f"{mpix * 1e3 / ms:.0f} Mpix/s, compile {compile_s:.0f}s"
+              f"{ssr_s})  — {desc}", flush=True)
 
 
 if __name__ == "__main__":

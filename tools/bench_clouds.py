@@ -1,20 +1,13 @@
 #!/usr/bin/env python
-"""Price tag for the per-pixel cloud deviation (VERDICT r4 item 6).
-
-The in-frame config-5 run with --cloud-impl perpixel kernel-faulted the
-TPU worker 4x (out/r5/clouds5.log) — the combined 1088p frame + the
-per-pixel march is more program than the worker survives.  This bench
-isolates the two cloud implementations at the production scale
-(config-5 half-res 960x544, QUADRANT quirk dims 1920x1088) so the LUT
-deviation carries a measured price even though the in-frame number is
-unobtainable:
+"""Price tag for the per-pixel cloud deviation: the two cloud
+implementations alone at the production scale (config-5 half-res
+960x544, QUADRANT quirk dims 1920x1088):
 
   - LUT path:   render_sky_lut (256x128 march) + sky_from_lut lookup
   - per-pixel:  render_clouds (the exact cloud_rendering.inl port,
                 24-step march + sun visibility + atmosphere per pixel)
 
-Timing per PERF.md: device-side scan with carry perturbation + float()
-readback.
+Timing: device-side scan with carry perturbation + float() readback.
 """
 import os
 import sys
@@ -26,8 +19,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from soc_real_time_renderer_tpu import config as cfgm, scenes
-from soc_real_time_renderer_tpu.ops import clouds
+from soc_real_time_renderer import config as cfgm, scenes
+from soc_real_time_renderer.ops import clouds
 
 REPS = int(os.environ.get("REPS", "8"))
 W = int(os.environ.get("W", "1920"))

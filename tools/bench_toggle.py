@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """In-frame per-pass attribution: bench.py's scan harness with pass
-toggles (the only trustworthy attribution — the isolated profiler
-under-measures passes whose input chains hoist, PERF.md).
+toggles (the isolated profiler under-measures passes whose input
+chains hoist).
 
 For each toggle, runs the full scan-harness frame with that pass
 disabled and reports the delta vs the baseline config.  A pass's true
@@ -30,7 +30,7 @@ def main():
                     help="use BASELINE config N's scene + flags "
                          "(overrides --scene/--width/--height)")
     ap.add_argument("--toggles", default=(
-        "shadows,ssao,bloom,clouds,taa,auto_exposure,hiz,ssao_xla"))
+        "shadows,ssao,bloom,clouds,taa,auto_exposure,hiz"))
     args = ap.parse_args()
 
     # BASELINE.json presets (keep in sync with tools/bench_baselines.py)
@@ -59,12 +59,12 @@ def main():
     import jax
     import numpy as np
 
-    from soc_real_time_renderer_tpu.utils import compile_cache
+    from soc_real_time_renderer.utils import compile_cache
     compile_cache.enable()
 
-    from soc_real_time_renderer_tpu import scenes
-    from soc_real_time_renderer_tpu.config import RenderConfig
-    from soc_real_time_renderer_tpu.graph import frame as frame_mod
+    from soc_real_time_renderer import scenes
+    from soc_real_time_renderer.config import RenderConfig
+    from soc_real_time_renderer.graph import frame as frame_mod
 
     if args.config:
         scene_name, kw = PRESETS[args.config]
@@ -74,8 +74,7 @@ def main():
             args.scene, RenderConfig(width=args.width, height=args.height))
     # the scene build tunes the config (static scene-true light counts,
     # terrain toggle); variants MUST derive from the tuned config or the
-    # baseline silently reverts to 128+128 empty light scans (~220 ms
-    # of artifact at 1080p)
+    # baseline silently reverts to 128+128 empty light scans
     cfg0 = built.plan.config
 
     gs = []
@@ -119,14 +118,13 @@ def main():
         "taa": cfg0.replace(enable_taa=False),
         "auto_exposure": cfg0.replace(enable_auto_exposure=False),
         "hiz": cfg0.replace(enable_hiz=False),
-        "ssao_xla": cfg0.replace(ssao_impl="xla"),
         # texture-filter plan variants: "tex_none" skips the atlas
         # gather entirely (constant texel) — its delta IS the in-frame
         # atlas tap cost; "tex_trilinear" doubles the tap.
         "tex_none": (cfg0, dict(texture_filter="none")),
         "tex_nearest": (cfg0, dict(texture_filter="nearest")),
         "tex_trilinear": (cfg0, dict(texture_filter="trilinear")),
-        # stage-level substitution stubs (VERDICT r3 item 1): each
+        # stage-level substitution stubs: each
         # replaces ONE stage with a cheap synthetic producer while
         # keeping the rest of the frame (and the stubbed stage's
         # upstream) live — delta = that stage's in-frame cost.  See
@@ -136,9 +134,7 @@ def main():
         "stub_shadow_resolve": (cfg0, dict(stub="shadow_resolve")),
         "stub_records": (cfg0, dict(stub="records")),
         "unlit": (cfg0, dict(stub="unlit")),
-        # -hiz anomaly probes (VERDICT r3 item 4; RESOLVED — the vis
-        # barrier is now the default): "no_visbar" re-opens the
-        # pathology for regression checks
+        # vis-barrier probes: "no_visbar" drops the default barrier
         "no_visbar": (cfg0, dict(vis_barrier=False)),
         "visbar_nohiz": (cfg0.replace(enable_hiz=False),
                          dict(vis_barrier=True)),
